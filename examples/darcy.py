@@ -18,7 +18,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from nonlinpdes_gpsolver_tpu.utils.config import (
+from nonlinpdes_gpsolver.utils.config import (
     SolverConfig, add_config_args, apply_runtime, build_kernel, config_from_args,
 )
 
@@ -46,8 +46,8 @@ def main():
     import jax.numpy as jnp
     import numpy as np
     from scipy.interpolate import RegularGridInterpolator
-    import nonlinpdes_gpsolver_tpu as gpt
-    from nonlinpdes_gpsolver_tpu.utils.classical import darcy_fd_solve
+    import nonlinpdes_gpsolver as gpt
+    from nonlinpdes_gpsolver.utils.classical import darcy_fd_solve
 
     def a_true(x1, x2):
         s = np.sin(2 * np.pi * x1) + np.sin(2 * np.pi * x2)
@@ -75,7 +75,7 @@ def main():
     )
     mesh = None
     if args.mesh:
-        from nonlinpdes_gpsolver_tpu.parallel import make_mesh
+        from nonlinpdes_gpsolver.parallel import make_mesh
 
         mesh = make_mesh(args.mesh)
     solver = gpt.GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
@@ -97,7 +97,7 @@ def main():
     print(f"[Timers] {res.timers}")
 
     if cfg.show_figure:
-        from nonlinpdes_gpsolver_tpu.utils.plotting import field_panels
+        from nonlinpdes_gpsolver.utils.plotting import field_panels
 
         field_panels(
             Xt,

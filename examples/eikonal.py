@@ -15,7 +15,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from nonlinpdes_gpsolver_tpu.utils.config import (
+from nonlinpdes_gpsolver.utils.config import (
     SolverConfig, add_config_args, apply_runtime, build_kernel, config_from_args,
 )
 
@@ -41,8 +41,8 @@ def main():
     import jax
     import jax.numpy as jnp
     import numpy as np
-    import nonlinpdes_gpsolver_tpu as gpt
-    from nonlinpdes_gpsolver_tpu.utils.classical import eikonal_cole_hopf_solve
+    import nonlinpdes_gpsolver as gpt
+    from nonlinpdes_gpsolver.utils.classical import eikonal_cole_hopf_solve
 
     key = jax.random.PRNGKey(cfg.seed)
     if cfg.sampled_type == "grid":
@@ -57,7 +57,7 @@ def main():
     )
     mesh = None
     if args.mesh:
-        from nonlinpdes_gpsolver_tpu.parallel import make_mesh
+        from nonlinpdes_gpsolver.parallel import make_mesh
 
         mesh = make_mesh(args.mesh)
     solver = gpt.GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
@@ -75,7 +75,7 @@ def main():
     print(f"[Timers] {res.timers}")
 
     if cfg.show_figure:
-        from nonlinpdes_gpsolver_tpu.utils.plotting import contour_error
+        from nonlinpdes_gpsolver.utils.plotting import contour_error
 
         contour_error(Xt, pred, U.ravel(), title="Eikonal test error")
 

@@ -14,7 +14,7 @@ from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from nonlinpdes_gpsolver_tpu.utils.config import (
+from nonlinpdes_gpsolver.utils.config import (
     SolverConfig, add_config_args, apply_runtime, build_kernel, config_from_args,
 )
 
@@ -41,7 +41,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    import nonlinpdes_gpsolver_tpu as gpt
+    import nonlinpdes_gpsolver as gpt
 
     def u_truth(x):
         return jnp.sin(jnp.pi * x[0]) * jnp.sin(jnp.pi * x[1]) + 2 * jnp.sin(
@@ -73,7 +73,7 @@ def main():
     # deferred-quality single-sync pipeline and the auto step-solver policy)
     mesh = None
     if args.mesh:
-        from nonlinpdes_gpsolver_tpu.parallel import make_mesh
+        from nonlinpdes_gpsolver.parallel import make_mesh
 
         mesh = make_mesh(args.mesh)
     solver = gpt.GPSolver(prob, nugget=cfg.nugget, nugget_type=cfg.nugget_type,
@@ -97,7 +97,7 @@ def main():
     print(f"[Test error] max {errt.max:.4e}  L2 {errt.l2:.4e}")
 
     if cfg.show_figure:
-        from nonlinpdes_gpsolver_tpu.utils.plotting import contour_error
+        from nonlinpdes_gpsolver.utils.plotting import contour_error
 
         contour_error(Xt, pred, jax.vmap(u_truth)(Xt), title="elliptic test error")
 

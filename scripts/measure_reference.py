@@ -69,7 +69,9 @@ def main():
 
     env = dict(os.environ)
     env["MPLBACKEND"] = "Agg"
-    env.pop("JAX_PLATFORMS", None)  # reference is CPU-only; let it default
+    # the reference is CPU-only; pinning the child to the CPU also keeps it
+    # off any GPU (a second JAX process on a card fails for want of memory)
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = str(ref)
 
     for name, (script, flags) in WORKLOADS.items():

@@ -16,8 +16,8 @@ import numpy as np
 import pytest
 from scipy.interpolate import RegularGridInterpolator
 
-import nonlinpdes_gpsolver_tpu as gpt
-from nonlinpdes_gpsolver_tpu.utils.classical import (
+import nonlinpdes_gpsolver as gpt
+from nonlinpdes_gpsolver.utils.classical import (
     burgers_cole_hopf_truth,
     darcy_fd_solve,
     eikonal_cole_hopf_solve,

@@ -14,8 +14,8 @@ import numpy as np
 import pytest
 from scipy.interpolate import RegularGridInterpolator
 
-import nonlinpdes_gpsolver_tpu as gpt
-from nonlinpdes_gpsolver_tpu.utils.classical import (
+import nonlinpdes_gpsolver as gpt
+from nonlinpdes_gpsolver.utils.classical import (
     burgers_cole_hopf_truth,
     darcy_fd_solve,
     eikonal_cole_hopf_solve,
@@ -137,7 +137,7 @@ def test_burgers_notebook_config():
 def test_eikonal_full_cli():
     """main_Eikonal2d.py --kernel_parameter 0.2 --nugget 1e-5 --N_domain
     1000 --N_boundary 200 --GNsteps 8 (eps=0.1). Reference CLI prints test
-    L2 3.46e-4; PERF.md records 3.30e-4 on TPU/f32. Gate at the reference's
+    L2 3.46e-4. Gate at the reference's
     own number."""
     eps = 0.1
     k = gpt.SquaredExponential.gaussian(0.2)
@@ -196,7 +196,7 @@ def test_darcy_full_cli():
 
 
 def _mesh8():
-    from nonlinpdes_gpsolver_tpu.parallel import make_mesh
+    from nonlinpdes_gpsolver.parallel import make_mesh
 
     return make_mesh(8)
 
@@ -285,7 +285,7 @@ def test_darcy_past_wall_mesh_pinned_draw():
     executable gate instead of a single favorable PERF table row. N_d=3000
     (7.5x the reference's default config, past its ~10k-row dense-wall
     comfort zone at 12,750 state-Gram rows), pinned seed and nugget, f32
-    (the regime the TPU rows are recorded in), through GPSolver(mesh=8)
+    (the GPU regime), through GPSolver(mesh=8)
     with the auto step-solver policy. Gates u L2 and records a rel-L2.
 
     The PERF.md mesh-table rows for this workload use EXACTLY this flag

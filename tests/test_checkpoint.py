@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import nonlinpdes_gpsolver_tpu as gpt
-from nonlinpdes_gpsolver_tpu.solvers import factorize, gn_solve, Posterior
-from nonlinpdes_gpsolver_tpu.utils.checkpoint import (
+import nonlinpdes_gpsolver as gpt
+from nonlinpdes_gpsolver.solvers import factorize, gn_solve, Posterior
+from nonlinpdes_gpsolver.utils.checkpoint import (
     load_solver_state,
     save_solver_state,
 )
@@ -61,7 +61,7 @@ def test_checkpoint_rejects_mismatched_problem(tmp_path):
 
 
 def test_flop_model_sane():
-    from nonlinpdes_gpsolver_tpu.utils.profiling import flop_model
+    from nonlinpdes_gpsolver.utils.profiling import flop_model
 
     prob = _problem()
     fm = flop_model(prob, gn_iters=4)
@@ -76,12 +76,12 @@ def test_distributed_checkpoint_roundtrip(tmp_path, eight_devices):
     size re-interleaves the block-cyclic layout correctly (round-1 VERDICT
     weak item 8: the hours-long 100k factorization must be reusable)."""
     import numpy as np
-    from nonlinpdes_gpsolver_tpu.parallel import make_mesh
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+    from nonlinpdes_gpsolver.parallel import make_mesh
+    from nonlinpdes_gpsolver.solvers.distributed import (
         factorize_distributed,
         gn_solve_distributed,
     )
-    from nonlinpdes_gpsolver_tpu.utils.checkpoint import (
+    from nonlinpdes_gpsolver.utils.checkpoint import (
         load_distributed_state,
         save_distributed_state,
     )

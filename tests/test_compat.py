@@ -7,7 +7,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nonlinpdes_gpsolver_tpu.compat import solver_GP
+from nonlinpdes_gpsolver.compat import solver_GP
 
 
 def _cfg(**kw):
@@ -139,7 +139,7 @@ def test_compat_mesh_passthrough(eight_devices):
         solver.set_equation(bdy=u, rhs=f, domain=np.array([[0, 1], [0, 1]]))
         solver.auto_sample(120, 32, sampled_type="random")
         solver.solve(method="elimination")
-        from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+        from nonlinpdes_gpsolver.solvers.distributed import (
             DistributedFactoredProblem,
         )
 

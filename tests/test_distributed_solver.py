@@ -5,16 +5,16 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-import nonlinpdes_gpsolver_tpu as gpt
-from nonlinpdes_gpsolver_tpu.parallel import make_mesh
-from nonlinpdes_gpsolver_tpu.parallel.gram import assemble_gram_sharded
-from nonlinpdes_gpsolver_tpu.parallel.cholesky import unshard_rows_blockcyclic
-from nonlinpdes_gpsolver_tpu.solvers import factorize, gn_solve
-from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+import nonlinpdes_gpsolver as gpt
+from nonlinpdes_gpsolver.parallel import make_mesh
+from nonlinpdes_gpsolver.parallel.gram import assemble_gram_sharded
+from nonlinpdes_gpsolver.parallel.cholesky import unshard_rows_blockcyclic
+from nonlinpdes_gpsolver.solvers import factorize, gn_solve
+from nonlinpdes_gpsolver.solvers.distributed import (
     factorize_distributed,
     gn_solve_distributed,
 )
-from nonlinpdes_gpsolver_tpu.ops.assembly import (
+from nonlinpdes_gpsolver.ops.assembly import (
     adaptive_nugget_diag, gram_matrix, observable_sizes,
 )
 
@@ -91,8 +91,8 @@ def test_distributed_darcy_two_blocks(eight_devices):
 
 
 def test_distributed_posterior_matches_single_device(eight_devices):
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import DistributedPosterior
-    from nonlinpdes_gpsolver_tpu.solvers import Posterior
+    from nonlinpdes_gpsolver.solvers.distributed import DistributedPosterior
+    from nonlinpdes_gpsolver.solvers import Posterior
 
     prob, u_truth = _elliptic_problem()
     mesh = make_mesh(8)
@@ -132,7 +132,7 @@ def test_distributed_f32_equilibrated(eight_devices):
         prob32 = gpt.models.nonlinear_elliptic(k32, Xd32, Xb32, rhs_f, u_truth, seed=1)
         dfp = factorize_distributed(prob32, mesh, nugget=1e-6, block=16)
         st = gn_solve_distributed(dfp, max_iter=4)
-        from nonlinpdes_gpsolver_tpu.solvers.distributed import DistributedPosterior
+        from nonlinpdes_gpsolver.solvers.distributed import DistributedPosterior
 
         post = DistributedPosterior(dfp, st.z)
         Xt = gpt.utils.test_grid(15, 15)
@@ -244,8 +244,8 @@ def test_factorize_distributed_escalates_on_singular_gram(eight_devices):
 
 
 def test_distributed_posterior_variance_matches_single_device(eight_devices):
-    from nonlinpdes_gpsolver_tpu.solvers import Posterior
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import DistributedPosterior
+    from nonlinpdes_gpsolver.solvers import Posterior
+    from nonlinpdes_gpsolver.solvers.distributed import DistributedPosterior
 
     prob, _ = _elliptic_problem()
     mesh = make_mesh(8)
@@ -393,8 +393,8 @@ def test_gpsolver_mesh_deferred_happy_path_matches_eager(eight_devices):
 def test_dist_extend_chunked_matches_unchunked(eight_devices):
     """The sharded+chunked posterior extension must agree with the dense
     single-device path bit-for-bit in f64, at every chunking regime."""
-    from nonlinpdes_gpsolver_tpu.solvers import Posterior
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+    from nonlinpdes_gpsolver.solvers import Posterior
+    from nonlinpdes_gpsolver.solvers.distributed import (
         DistributedPosterior, _dist_extend,
     )
 
@@ -405,7 +405,7 @@ def test_dist_extend_chunked_matches_unchunked(eight_devices):
     dpost = DistributedPosterior(dfp, dstate.z)
     Xt = gpt.utils.test_grid(13, 13)  # 169 points: not a multiple of 8
     b = prob.blocks[0]
-    from nonlinpdes_gpsolver_tpu.ops.operators import identity as id_op
+    from nonlinpdes_gpsolver.ops.operators import identity as id_op
 
     base = np.asarray(dpost.extend(Xt))
     for chunk in (5, 64, None):
@@ -427,10 +427,10 @@ def test_dist_extend_memory_is_shard_sized(eight_devices):
     """Compiled memory of the sharded extension must stay well below the
     full (n_test, n) panel: per-device output is m/P and the only panel-
     sized temporary is the (chunk, n) strip (round-3 VERDICT weak item 3)."""
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+    from nonlinpdes_gpsolver.solvers.distributed import (
         DistributedPosterior, _dist_extend,
     )
-    from nonlinpdes_gpsolver_tpu.ops.operators import identity as id_op
+    from nonlinpdes_gpsolver.ops.operators import identity as id_op
 
     prob, _ = _elliptic_problem(N=150, Nb=40)
     mesh = make_mesh(8)
@@ -538,8 +538,8 @@ def test_dist_variance_chunked_matches_and_memory(eight_devices):
     """Sharded+chunked posterior variance: exact agreement across chunk
     regimes, and compiled per-device memory far below the full (m, n)
     panel (the serving-scale contract, mirror of the extend test)."""
-    from nonlinpdes_gpsolver_tpu.ops.operators import identity as id_op
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+    from nonlinpdes_gpsolver.ops.operators import identity as id_op
+    from nonlinpdes_gpsolver.solvers.distributed import (
         DistributedPosterior, _dist_variance,
     )
 
@@ -601,7 +601,7 @@ def test_batched_cg_and_woodbury_algebra():
     tight tolerance + capacitance correction must reproduce the direct
     solve of the FULL H; a warm restart from the solution must converge in
     zero iterations."""
-    from nonlinpdes_gpsolver_tpu.solvers.gn import _batched_cg, _woodbury_correct
+    from nonlinpdes_gpsolver.solvers.gn import _batched_cg, _woodbury_correct
 
     rng = np.random.default_rng(0)
     m, K = 200, 9

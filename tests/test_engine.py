@@ -6,12 +6,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import nonlinpdes_gpsolver_tpu as gpt
-from nonlinpdes_gpsolver_tpu.models.spec import CollocationProblem, GPBlock, Misfit
-from nonlinpdes_gpsolver_tpu.ops import Observable, SquaredExponential, identity, laplacian, d
-from nonlinpdes_gpsolver_tpu.solvers import factorize, gn_solve, Posterior
-from nonlinpdes_gpsolver_tpu.utils import sample_random, sample_grid
-from nonlinpdes_gpsolver_tpu.utils.classical import (
+import nonlinpdes_gpsolver as gpt
+from nonlinpdes_gpsolver.models.spec import CollocationProblem, GPBlock, Misfit
+from nonlinpdes_gpsolver.ops import Observable, SquaredExponential, identity, laplacian, d
+from nonlinpdes_gpsolver.solvers import factorize, gn_solve, Posterior
+from nonlinpdes_gpsolver.utils import sample_random, sample_grid
+from nonlinpdes_gpsolver.utils.classical import (
     burgers_cole_hopf_truth,
     darcy_fd_solve,
     eikonal_cole_hopf_solve,
@@ -237,7 +237,7 @@ def test_burgers_truth_initial_condition():
 
 def test_gn_cg_matches_direct():
     """Matrix-free CG step solver must match the explicit-Jacobian path."""
-    import nonlinpdes_gpsolver_tpu as gpt
+    import nonlinpdes_gpsolver as gpt
 
     def u_truth(x):
         return jnp.sin(jnp.pi * x[0]) * jnp.sin(jnp.pi * x[1])
@@ -293,7 +293,7 @@ def test_posterior_variance_against_dense_formula():
     var = post.variance(Xt)
 
     # dense reference: Theta + nugget*I assembled directly
-    from nonlinpdes_gpsolver_tpu.ops.assembly import cross_gram, regularized_gram
+    from nonlinpdes_gpsolver.ops.assembly import cross_gram, regularized_gram
 
     obs = prob.blocks[0].observables
     Th = regularized_gram(k, obs, prob.points, nugget, "identity")
@@ -319,7 +319,7 @@ def test_posterior_variance_against_dense_formula():
 # Structured Gauss-Newton fast path
 # ---------------------------------------------------------------------------
 def _four_small_problems():
-    import nonlinpdes_gpsolver_tpu as gpt
+    import nonlinpdes_gpsolver as gpt
 
     key = jax.random.PRNGKey(0)
     k = SquaredExponential.gaussian(0.3)
@@ -367,7 +367,7 @@ def test_structured_gn_matches_direct(idx):
 def test_structured_auto_selection_and_fallback():
     """auto picks structured when inverse factors exist, falls back to direct
     for trsm-mode factors; a genuinely non-pointwise residual is rejected."""
-    from nonlinpdes_gpsolver_tpu.solvers.gn import _slice_structure, _structure_holds
+    from nonlinpdes_gpsolver.solvers.gn import _slice_structure, _structure_holds
 
     prob = _four_small_problems()[0]
     fp_inv = factorize(prob, nugget=1e-8, solve_mode="inverse")
@@ -548,7 +548,7 @@ def test_eval_cache_key_tracks_module_globals():
     cell silently evaluated with the stale traced value)."""
     import types
 
-    from nonlinpdes_gpsolver_tpu.models.elliptic import _eval_on
+    from nonlinpdes_gpsolver.models.elliptic import _eval_on
 
     mod = types.ModuleType("fake_user_module")
     exec("import jax.numpy as jnp\ndef f(x):\n    return AMP * x[0]", mod.__dict__)
@@ -566,7 +566,7 @@ def test_eval_cache_key_unhashable_global_falls_back():
     values, just uncached."""
     import types
 
-    from nonlinpdes_gpsolver_tpu.models.elliptic import _eval_on
+    from nonlinpdes_gpsolver.models.elliptic import _eval_on
 
     mod = types.ModuleType("fake_user_module2")
     exec("def f(x):\n    return (ARR * x).sum()", mod.__dict__)
@@ -578,10 +578,10 @@ def test_eval_cache_key_unhashable_global_falls_back():
 def test_posterior_extend_chunked_matches_unchunked():
     """Serving-scale chunked extension (lax.map over test-point chunks) must
     be exactly equivalent to the one-shot panel."""
-    from nonlinpdes_gpsolver_tpu.solvers.posterior import (
+    from nonlinpdes_gpsolver.solvers.posterior import (
         _extend_jit, _serving_chunk,
     )
-    from nonlinpdes_gpsolver_tpu.ops.operators import identity as id_op
+    from nonlinpdes_gpsolver.ops.operators import identity as id_op
 
     def u_truth(x):
         return jnp.sin(jnp.pi * x[0]) * jnp.sin(jnp.pi * x[1])
@@ -620,8 +620,8 @@ def test_gpsolver_auto_mesh_selects_fused_path(monkeypatch):
     the fused streaming mesh path on its own (round-3 VERDICT weak item 2:
     the crossover was documented but the dense path was still silently
     chosen); auto_mesh=False keeps the dense path."""
-    import nonlinpdes_gpsolver_tpu.api as api_mod
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+    import nonlinpdes_gpsolver.api as api_mod
+    from nonlinpdes_gpsolver.solvers.distributed import (
         DistributedFactoredProblem,
     )
 
@@ -637,7 +637,7 @@ def test_gpsolver_auto_mesh_selects_fused_path(monkeypatch):
     # pretend this CPU run is an accelerator and the problem is past the
     # crossover (the policy inputs, not the numerics, are under test)
     monkeypatch.setattr(api_mod, "_AUTO_MESH_GRAM_ROWS", 100)
-    import nonlinpdes_gpsolver_tpu.ops.backend as backend_mod
+    import nonlinpdes_gpsolver.ops.backend as backend_mod
 
     monkeypatch.setattr(backend_mod, "is_accelerator", lambda: True)
     solver = gpt.GPSolver(
@@ -663,8 +663,8 @@ def test_posterior_variance_chunked_matches_and_memory():
     be row-chunked like ``extend`` - exact equivalence across chunk
     regimes, and compiled temporaries bounded by the (n, chunk) strip
     rather than the full (n, n_test) whitened panel."""
-    from nonlinpdes_gpsolver_tpu.ops.operators import identity as id_op
-    from nonlinpdes_gpsolver_tpu.solvers.posterior import _variance_jit
+    from nonlinpdes_gpsolver.ops.operators import identity as id_op
+    from nonlinpdes_gpsolver.solvers.posterior import _variance_jit
 
     def u_truth(x):
         return jnp.sin(jnp.pi * x[0]) * jnp.sin(jnp.pi * x[1])

@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nonlinpdes_gpsolver_tpu.ops import (
+from nonlinpdes_gpsolver.ops import (
     Observable,
     SquaredExponential,
     d,
@@ -15,18 +15,18 @@ from nonlinpdes_gpsolver_tpu.ops import (
     identity,
     laplacian,
 )
-from nonlinpdes_gpsolver_tpu.parallel.cholesky import (
+from nonlinpdes_gpsolver.parallel.cholesky import (
     _chol_sharded,
     unshard_rows_blockcyclic,
 )
-from nonlinpdes_gpsolver_tpu.parallel.fused import (
+from nonlinpdes_gpsolver.parallel.fused import (
     _seg_ranges,
     _superblocks,
     assemble_factor_fused,
     sampled_row_quality,
 )
-from nonlinpdes_gpsolver_tpu.parallel.gram import _segments, assemble_gram_sharded
-from nonlinpdes_gpsolver_tpu.parallel.mesh import make_mesh
+from nonlinpdes_gpsolver.parallel.gram import _segments, assemble_gram_sharded
+from nonlinpdes_gpsolver.parallel.mesh import make_mesh
 
 
 def _elliptic_setup(n_dom=70, n_bd=22, f32=False):
@@ -167,7 +167,7 @@ def test_sampled_row_probe_catches_corruption(eight_devices):
 def test_factorize_distributed_fused_end_to_end(eight_devices):
     """GPSolver on the mesh path with the fused factorization must agree
     with the two-pass factorization end-to-end (same GN solution)."""
-    from nonlinpdes_gpsolver_tpu import GPSolver, models
+    from nonlinpdes_gpsolver import GPSolver, models
 
     def u_truth(x):
         return jnp.sin(jnp.pi * x[0]) * jnp.sin(jnp.pi * x[1])
@@ -175,11 +175,11 @@ def test_factorize_distributed_fused_end_to_end(eight_devices):
     def rhs_f(x):
         return -jnp.trace(jax.hessian(u_truth)(x)) + u_truth(x) ** 3
 
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+    from nonlinpdes_gpsolver.solvers.distributed import (
         factorize_distributed,
         gn_solve_distributed,
     )
-    from nonlinpdes_gpsolver_tpu.utils import sample_random
+    from nonlinpdes_gpsolver.utils import sample_random
 
     Xd, Xb = sample_random(jax.random.PRNGKey(0), 80, 24)
     kern = SquaredExponential.gaussian(0.3)
@@ -204,8 +204,8 @@ def test_factorize_distributed_fused_escalates(eight_devices, fused=True):
     (mirror of test_factorize_distributed_escalates_on_singular_gram)."""
     import jax as _jax
 
-    import nonlinpdes_gpsolver_tpu as gpt
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import factorize_distributed
+    import nonlinpdes_gpsolver as gpt
+    from nonlinpdes_gpsolver.solvers.distributed import factorize_distributed
 
     _jax.config.update("jax_enable_x64", False)
     try:

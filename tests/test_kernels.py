@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nonlinpdes_gpsolver_tpu.ops import (
+from nonlinpdes_gpsolver.ops import (
     SquaredExponential,
     ad_pair_fn,
     d,
@@ -114,8 +114,8 @@ def test_operator_algebra():
 
 def test_exp_neg_accurate_f32():
     """Cody-Waite exp must be ~1-2 ulp in f32 over the kernel's q range
-    (the TPU-native exp is ~40 ulp, which breaks Gram PSD-ness)."""
-    from nonlinpdes_gpsolver_tpu.ops.kernels import exp_neg_accurate
+    (a tens-of-ulp hardware exp breaks Gram PSD-ness)."""
+    from nonlinpdes_gpsolver.ops.kernels import exp_neg_accurate
 
     q = jnp.asarray(np.linspace(0.0, 60.0, 20001), dtype=jnp.float32)
     got = np.asarray(exp_neg_accurate(q)).astype(np.float64)

@@ -1,7 +1,7 @@
 """Parity tests for the precision-controlled dense linalg substrate.
 
 Covers the fori_loop blocked algorithms and the recursive (divide-and-
-conquer) variants used on TPU, against numpy/LAPACK ground truth, at odd
+conquer) variants used on the GPU, against numpy/LAPACK ground truth, at odd
 (non-tile-multiple) sizes and for both vector and multi-RHS shapes.
 """
 
@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nonlinpdes_gpsolver_tpu.ops.linalg import (
+from nonlinpdes_gpsolver.ops.linalg import (
     blocked_cholesky,
     blocked_trsm,
     recursive_cholesky,
@@ -96,7 +96,7 @@ def test_unblocked_cholesky_f64_exact():
 def test_newton_refine_tri_inverse_improves_residual():
     """On an ill-conditioned f32 factor, one Newton step must shrink
     ||WL - I|| by orders of magnitude."""
-    from nonlinpdes_gpsolver_tpu.ops.linalg import newton_refine_tri_inverse
+    from nonlinpdes_gpsolver.ops.linalg import newton_refine_tri_inverse
 
     n = 400
     A64 = _rand_spd(n, seed=11, cond=1e8)
@@ -117,7 +117,7 @@ def test_newton_refine_tri_inverse_improves_residual():
 
 @pytest.mark.parametrize("n", [5, 130])
 def test_spd_solve_controlled_matches_lapack(n):
-    from nonlinpdes_gpsolver_tpu.ops.linalg import spd_solve, spd_solve_controlled
+    from nonlinpdes_gpsolver.ops.linalg import spd_solve, spd_solve_controlled
 
     H = jnp.asarray(_rand_spd(n, seed=3 * n, cond=1e6))
     g = jnp.asarray(np.random.default_rng(n).standard_normal(n))
@@ -134,7 +134,7 @@ def test_cholesky_inverse_all_gemm():
     on an ill-conditioned SPD matrix, at f32 and f64."""
     import jax.numpy as jnp
 
-    from nonlinpdes_gpsolver_tpu.ops.linalg import cholesky_inverse
+    from nonlinpdes_gpsolver.ops.linalg import cholesky_inverse
 
     rng = np.random.default_rng(0)
     n = 500

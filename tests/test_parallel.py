@@ -7,7 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nonlinpdes_gpsolver_tpu.parallel import (
+from nonlinpdes_gpsolver.parallel import (
     cholesky_blockcyclic,
     make_mesh,
     trsm_blockcyclic,
@@ -39,7 +39,7 @@ def test_distributed_cholesky_multichunk(eight_devices, n, block, chunk_cols):
     """Force the chunked trailing-update path (nch > 1): the clamped-start +
     column-mask logic must reproduce the dense factorization exactly (round-2
     VERDICT weak item 3 - previously the largest CPU test ran one chunk and
-    the masking first executed on real TPU at n_pad > 4096)."""
+    the masking first executed on hardware at n_pad > 4096)."""
     mesh = make_mesh(8)
     A = _spd(n, seed=n + 1)
     fac = cholesky_blockcyclic(A, mesh, block=block, chunk_cols=chunk_cols)
@@ -59,14 +59,14 @@ def test_sharded_assembly_multichunk_matches_dense(eight_devices):
     Gram matrix - this catches masked-region corruption that the
     factor-quality probe cannot (the probe's ground truth is the same
     assembled matrix)."""
-    import nonlinpdes_gpsolver_tpu as gpt
-    from nonlinpdes_gpsolver_tpu.ops.assembly import (
+    import nonlinpdes_gpsolver as gpt
+    from nonlinpdes_gpsolver.ops.assembly import (
         adaptive_nugget_diag,
         gram_matrix,
         observable_sizes,
     )
-    from nonlinpdes_gpsolver_tpu.parallel.gram import assemble_gram_sharded
-    from nonlinpdes_gpsolver_tpu.parallel.cholesky import (
+    from nonlinpdes_gpsolver.parallel.gram import assemble_gram_sharded
+    from nonlinpdes_gpsolver.parallel.cholesky import (
         unshard_rows_blockcyclic,
     )
 
@@ -158,7 +158,7 @@ def test_distributed_trsm_transposed(eight_devices):
 
 
 def test_distributed_kernel_solve(eight_devices):
-    from nonlinpdes_gpsolver_tpu.parallel.cholesky import kernel_solve_blockcyclic
+    from nonlinpdes_gpsolver.parallel.cholesky import kernel_solve_blockcyclic
 
     mesh = make_mesh(8)
     n = 128
@@ -189,7 +189,7 @@ def test_trsm_column_sharded_matches_replicated(eight_devices):
 
 
 def test_matvec_blockcyclic(eight_devices):
-    from nonlinpdes_gpsolver_tpu.parallel.cholesky import (
+    from nonlinpdes_gpsolver.parallel.cholesky import (
         matvec_blockcyclic,
         shard_rows_blockcyclic,
     )
@@ -216,8 +216,8 @@ def test_sharded_assembly_memory_is_shard_sized(eight_devices):
     (n_pad, n_pad) intermediate: per-device output + temporaries stay within
     a small multiple of the n_pad^2/P shard (round-1 VERDICT weak item 2 -
     previously a docstring hope, now a compiled-memory invariant)."""
-    import nonlinpdes_gpsolver_tpu as gpt
-    from nonlinpdes_gpsolver_tpu.parallel.gram import _assemble_arranged
+    import nonlinpdes_gpsolver as gpt
+    from nonlinpdes_gpsolver.parallel.gram import _assemble_arranged
 
     def u_truth(x):
         return jnp.sin(jnp.pi * x[0]) * jnp.sin(jnp.pi * x[1])
@@ -235,7 +235,7 @@ def test_sharded_assembly_memory_is_shard_sized(eight_devices):
     block = 16
     n = sum(prob.points[o.points].shape[0] for o in b.observables)
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from nonlinpdes_gpsolver_tpu.parallel.cholesky import pad_to_blocks
+    from nonlinpdes_gpsolver.parallel.cholesky import pad_to_blocks
 
     n_pad = pad_to_blocks(n, block, 8)
     nb = n_pad // block
@@ -265,18 +265,20 @@ def test_sharded_assembly_memory_is_shard_sized(eight_devices):
 
 
 def test_initialize_distributed_dispatch(monkeypatch):
-    """The multi-host bring-up passes identity through for explicit launches,
-    auto-detects on Cloud TPU workers, and no-ops everywhere else."""
-    from nonlinpdes_gpsolver_tpu.parallel import mesh as mesh_mod
+    """The multi-host bring-up passes identity through for explicit launches
+    and no-ops for a single process, whatever the environment says."""
+    from nonlinpdes_gpsolver.parallel import mesh as mesh_mod
 
     calls = []
     monkeypatch.setattr(
         jax.distributed, "initialize",
         lambda *a, **k: calls.append((a, k)),
     )
-    monkeypatch.delenv("TPU_WORKER_ID", raising=False)
     assert mesh_mod.initialize_distributed() is False        # single process
     assert mesh_mod.initialize_distributed(num_processes=1) is False
+    assert mesh_mod.initialize_distributed(
+        coordinator_address="localhost:8476", process_id=0
+    ) is False                                # no process count: one process
     assert calls == []
     assert mesh_mod.initialize_distributed(
         coordinator_address="10.0.0.2:8476", num_processes=4, process_id=2
@@ -286,9 +288,7 @@ def test_initialize_distributed_dispatch(monkeypatch):
         "num_processes": 4,
         "process_id": 2,
     }
-    monkeypatch.setenv("TPU_WORKER_ID", "0")
-    assert mesh_mod.initialize_distributed() is True         # auto-detect
-    assert calls[-1] == ((), {})
+    assert len(calls) == 1
 
 
 def test_two_process_distributed_bringup(tmp_path):
@@ -315,7 +315,7 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=1"
 import jax
 jax.config.update("jax_platforms", "cpu")
 pid, port = int(sys.argv[1]), sys.argv[2]
-from nonlinpdes_gpsolver_tpu.parallel.mesh import (
+from nonlinpdes_gpsolver.parallel.mesh import (
     initialize_distributed, make_mesh,
 )
 started = initialize_distributed(
@@ -379,14 +379,14 @@ def test_two_process_distributed_solve(tmp_path):
     import sys
     from pathlib import Path
 
-    from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+    from nonlinpdes_gpsolver.solvers.distributed import (
         factorize_distributed as _fd,
         gn_solve_distributed as _gd,
     )
 
     # single-process reference at the SAME mesh size P=2 (2 of the 8
     # virtual devices) - the two-process run executes the same SPMD program
-    import nonlinpdes_gpsolver_tpu as gpt
+    import nonlinpdes_gpsolver as gpt
 
     def u_truth(x):
         return jnp.sin(jnp.pi * x[0]) * jnp.sin(jnp.pi * x[1])
@@ -419,7 +419,7 @@ import jax
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 pid, port, ref_path = int(sys.argv[1]), sys.argv[2], sys.argv[3]
-from nonlinpdes_gpsolver_tpu.parallel.mesh import (
+from nonlinpdes_gpsolver.parallel.mesh import (
     initialize_distributed, make_mesh,
 )
 started = initialize_distributed(
@@ -428,8 +428,8 @@ started = initialize_distributed(
 assert started and jax.process_count() == 2
 import jax.numpy as jnp
 import numpy as np
-import nonlinpdes_gpsolver_tpu as gpt
-from nonlinpdes_gpsolver_tpu.solvers.distributed import (
+import nonlinpdes_gpsolver as gpt
+from nonlinpdes_gpsolver.solvers.distributed import (
     factorize_distributed, gn_solve_distributed,
 )
 
