@@ -3,6 +3,7 @@
 
     python chip_smoke.py          # one card: phases 0-3
     python chip_smoke.py --four   # four cards: phase 0 + the 4-card mesh path
+    python chip_smoke.py --four --four-n 10000   # the same at N=10,000
 
 Phase 0 checks the device (a GPU, nothing else). Phase 1 runs the four
 upstream CLI configurations through ``GPSolver`` with the acceptance
@@ -10,9 +11,10 @@ suite's accuracy gates, the f32 ``exp`` accuracy over the Gram's argument
 range, and the elliptic solve again under ``default_matmul_precision
 ('highest')``. Phase 2 runs elliptic N=20,000, which ``auto_mesh`` routes
 to the fused streaming path on a 1-device mesh. Phase 3 runs the Darcy
-inverse at N_d=5,000 with the Woodbury step on a 1-device mesh.
-``--four`` instead runs phase 2's elliptic N=20,000 on a 4-card mesh
-against the same problem on one card.
+inverse at N_d=5,000 with the Woodbury step on a 1-device mesh. Both run
+cold, then warm. ``--four`` instead runs elliptic N=28,000 (59,904 Gram
+rows on one card; ``--four-n`` sets N, with N/8 boundary points) on a
+4-card mesh against the same problem on one card, in this process.
 
 Every phase prints what it measured on its own line. A failed gate exits
 non-zero before the last line; the last line is one JSON object,
@@ -26,6 +28,7 @@ import time
 from pathlib import Path
 
 ELLIPTIC_L2_GATE = 3.402e-3  # BASELINE.md row 1 (reference notebook)
+FOUR_N = 28000  # --four's default N; N_boundary = N/8, as at N=20,000
 
 
 def require_gpu():
@@ -145,16 +148,17 @@ def phase_elliptic_20k(dev, card: str) -> None:
     from nonlinpdes_gpsolver.utils import workloads
 
     w = workloads.elliptic(N=20000, Nb=2500)
-    solver, _, _, cold = solve(w)
-    gate(solver.mesh is not None, "N=20,000 did not take the mesh path")
+    cold = solve(w)[3]  # nothing of the cold run outlives it
     solver, res, pred, warm = solve(w)
+    gate(solver.mesh is not None, "N=20,000 did not take the mesh path")
     err = errors(w, pred)
     fac = solver.fp.factors["u"]
+    fbytes = fac.n_pad * fac.n_pad * fac.local.dtype.itemsize
     peak = dev.memory_stats()["peak_bytes_in_use"]
     print(f"phase2 [{w.name}] auto_mesh -> fused path on "
           f"{solver.mesh.devices.size} device(s), n_pad {fac.n_pad}: cold "
           f"{cold:.6f} s, warm {warm:.6f} s, test L2 {err.l2:.4e}, "
-          f"peak_bytes_in_use {peak}, cg_iters "
+          f"peak_bytes_in_use {peak} = {peak / fbytes:.3f} x the factor, cg_iters "
           f"{[int(i) for i in res.state.cg_iters]} [{card}]", flush=True)
     gate(err.l2 <= ELLIPTIC_L2_GATE, f"N=20,000 test L2 {err.l2}")
 
@@ -166,11 +170,12 @@ def phase_darcy_5k(card: str) -> None:
 
     w = workloads.darcy(N=5000, Nb=1250)
     mesh = make_mesh(1)
-    _, res, pred, cold = solve(w, mesh=mesh, step_solver="woodbury")
+    cold = solve(w, mesh=mesh, step_solver="woodbury")[3]
+    _, res, pred, warm = solve(w, mesh=mesh, step_solver="woodbury")
     err = errors(w, pred)
     iters = np.asarray(res.state.cg_iters)
     print(f"phase3 [{w.name}] woodbury on a 1-device mesh: cold {cold:.6f} s, "
-          f"u test L2 {err.l2:.4e}, cg_iters "
+          f"warm {warm:.6f} s, u test L2 {err.l2:.4e}, cg_iters "
           f"{iters.tolist()}, losses {np.asarray(res.losses).tolist()} "
           f"[{card}]", flush=True)
     gate(err.l2 < 5e-3, f"Darcy N_d=5,000 u L2 {err.l2}")
@@ -178,29 +183,28 @@ def phase_darcy_5k(card: str) -> None:
          f"Darcy N_d=5,000 cg_iters {iters.tolist()}")
 
 
-def phase_four(devs, card: str) -> None:
-    """Elliptic N=20,000 (phase 2's problem: the largest whose 1-card f64
-    run fits one card) on a 4-card mesh against a 1-device mesh."""
+def phase_four(devs, card: str, N: int = FOUR_N) -> None:
+    """Elliptic N on a 4-card mesh against a 1-device mesh; one run each,
+    compile included."""
     import numpy as np
     from nonlinpdes_gpsolver.parallel import make_mesh
     from nonlinpdes_gpsolver.utils import workloads
 
     gate(len(devs) >= 4, f"--four needs 4 GPUs, found {len(devs)}")
-    w = workloads.elliptic(N=20000, Nb=2500)
+    w = workloads.elliptic(N=N, Nb=N // 8)
     runs, peaks = {}, []
     # 4 cards first: peak_bytes_in_use is a per-process maximum, so each
     # card's peak is read before the 1-card run parks a full factor on one
     for P in (4, 1):
-        mesh = make_mesh(P)
-        _, _, _, cold = solve(w, mesh=mesh)
-        solver, res, pred, warm = solve(w, mesh=mesh)
+        solver, res, pred, sec = solve(w, mesh=make_mesh(P))
         err = errors(w, pred)
         fac = solver.fp.factors["u"]
         shard = fac.n_pad * fac.n_pad * fac.local.dtype.itemsize // P
         runs[P] = (np.asarray(res.z), float(res.losses[-1]))
-        print(f"four [{w.name}] {P}-card mesh, n_pad {fac.n_pad}: cold "
-              f"{cold:.6f} s, warm {warm:.6f} s, test L2 {err.l2:.4e}, "
-              f"final loss {runs[P][1]:.6e} [{card}]", flush=True)
+        print(f"four [{w.name}] {P}-card mesh, n_pad {fac.n_pad}: "
+              f"{sec:.6f} s (compile included), test L2 {err.l2:.4e}, final "
+              f"loss {runs[P][1]:.6e}, nugget scale "
+              f"{solver.fp.nugget_scales} [{card}]", flush=True)
         gate(err.l2 <= ELLIPTIC_L2_GATE, f"{P}-card test L2 {err.l2}")
         for d in devs[:P]:
             peak = d.memory_stats()["peak_bytes_in_use"]
@@ -228,16 +232,16 @@ def main() -> None:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--four", action="store_true",
                     help="run only the 4-card mesh path and its 1-card comparison")
+    ap.add_argument("--four-n", type=int, default=FOUR_N,
+                    help="N_domain of the --four problem (default %(default)s)")
     args = ap.parse_args()
 
     devs = require_gpu()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import jax
+    from nonlinpdes_gpsolver.utils.config import card_info, setup_runtime
 
-    jax.config.update("jax_enable_x64", True)  # the program's default (ops.backend)
-    from nonlinpdes_gpsolver.utils.config import card_info, setup_compile_cache
-
-    cache = setup_compile_cache()
+    cache = setup_runtime()  # the program's default precision, f64
     dev = devs[0]
     card = card_info()
     print(f"phase0 device {dev.device_kind}, count {len(devs)}, bytes_limit "
@@ -247,7 +251,7 @@ def main() -> None:
     card = card.splitlines()[0]
 
     if args.four:
-        phase_four(devs, card)
+        phase_four(devs, card, args.four_n)
     else:
         phase_cli(card)
         phase_elliptic_20k(dev, card)

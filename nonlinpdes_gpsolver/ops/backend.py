@@ -1,21 +1,20 @@
 """Backend classification shared by every precision/dispatch decision.
 
-The program runs on two platforms: XLA-CPU and the GPU. Its drivers run in
-f64 on both (``utils.config.apply_runtime``, ``chip_smoke.py``,
-``bench.py``), as the reference does (``src/kernels.py:4`` et passim
-upstream). f32 stays available (x64 off): then the solver equilibrates
-every factor and runs every dot at ``Precision.HIGHEST`` (plain FP32 on
-the GPU, never TF32). On the H100 that f32 path fails three accuracy gates
-of the upstream CLI configurations: the card's f32 division and square
-root are approximate (~1-2 ulp) and its f32 GEMMs carry ~3x the CPU's
-accumulation error, which leaves the Cholesky of these Gram matrices no
-margin at the configured nuggets (PERF.md, Findings).
+The program runs on two platforms: XLA-CPU and the GPU. Its entry points
+run in f64 on both (``utils.config.DEFAULT_X64``, set by
+``utils.config.setup_runtime``), as the reference does (``src/kernels.py:4``
+et passim upstream). f32 stays available (x64 off): then the solver
+equilibrates every factor and runs every dot at ``Precision.HIGHEST`` (plain
+FP32 on the GPU, never TF32). On the H100 that f32 path misses accuracy
+gates of the upstream configurations (PERF.md, Findings).
 
-On the GPU the solver also keeps the decisions it was tuned under, in either
-dtype: whitening by a precomputed triangular inverse (``solve_mode=
+On the GPU the solver keeps, in either dtype, the decisions it was tuned
+under: whitening by a precomputed triangular inverse (``solve_mode=
 'inverse'``), the hand-rolled Cholesky/inverse family of :mod:`.linalg`,
-the deferred quality verdict, and ``auto_mesh``. Whether cuSOLVER would do
-as well is decided by measurement (ROADMAP A4). Every module calls
+the deferred quality verdict, and ``auto_mesh``. They are keyed on the
+platform, not on the dtype, so f64 on the GPU still takes them while f64 on
+the CPU takes LAPACK. That fork is open: whether cuSOLVER does as well at
+f64 is decided by measurement (ROADMAP A4). Every module calls
 :func:`is_accelerator` instead of testing backend strings.
 """
 

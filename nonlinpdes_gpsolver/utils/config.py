@@ -16,6 +16,11 @@ import os
 from pathlib import Path
 from typing import List, Optional
 
+# The program's default precision, on both platforms: f64. On the H100 the
+# f32 path misses accuracy gates of the upstream configurations (PERF.md,
+# Findings); f32 stays opt-in (``--no-x64``, or points cast to f32).
+DEFAULT_X64 = True
+
 
 @dataclasses.dataclass
 class SolverConfig:
@@ -38,9 +43,7 @@ class SolverConfig:
     pen_lambda: float = 1e-10
     # runtime
     platform: Optional[str] = None  # None = whatever JAX picks (GPU if present)
-    # f64 on every platform (reference parity; on the GPU the f32 path fails
-    # the accuracy gates, see ops.backend). --no-x64 opts into f32.
-    x64: bool = True
+    x64: bool = DEFAULT_X64
     show_figure: bool = False
 
 
@@ -95,6 +98,16 @@ def setup_compile_cache() -> str:
     return path
 
 
+def setup_runtime(x64: bool = DEFAULT_X64) -> str:
+    """Precision and compile cache for an entry point, before any device
+    use: the one place the program's precision is set. Returns the
+    compile-cache directory in use."""
+    import jax
+
+    jax.config.update("jax_enable_x64", bool(x64))
+    return setup_compile_cache()
+
+
 def card_info() -> str:
     """``name, power limit`` of each GPU, one line per card, from
     ``nvidia-smi`` (a plain subprocess, off JAX). Raises if it fails: a
@@ -116,8 +129,7 @@ def apply_runtime(cfg: SolverConfig) -> None:
 
     if cfg.platform:
         jax.config.update("jax_platforms", cfg.platform)
-    setup_compile_cache()
-    jax.config.update("jax_enable_x64", bool(cfg.x64))
+    setup_runtime(cfg.x64)
 
 
 def build_kernel(cfg: SolverConfig):

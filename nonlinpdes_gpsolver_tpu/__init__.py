@@ -1,28 +1,13 @@
-"""TPU-native Gaussian-process solver for nonlinear PDEs and inverse problems.
+"""The package's earlier import name, kept as an alias of
+:mod:`nonlinpdes_gpsolver`: importing it, or any of its submodules, returns
+the very module objects of ``nonlinpdes_gpsolver``."""
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-yifanc96/NonLinPDEs-GPsolver (Chen, Hosseini, Owhadi, Stuart, JCP 2021):
-declarative PDE specs, compiled derivative-kernel Gram assembly, whitened
-Gauss-Newton, GP posterior extension, and mesh-sharded dense linear algebra.
-"""
+import importlib
+import pkgutil
+import sys
 
-__version__ = "0.1.0"
+import nonlinpdes_gpsolver as _pkg
 
-from .ops import (  # noqa: E402,F401
-    LinearOp,
-    identity,
-    d,
-    d2,
-    laplacian,
-    SquaredExponential,
-    ad_pair_fn,
-    Observable,
-    gram_matrix,
-    cross_gram,
-    adaptive_nugget_diag,
-    regularized_gram,
-    observable_sizes,
-)
-from . import compat, models, ops, parallel, solvers, utils  # noqa: E402,F401
-from .api import GPSolver, SolveResult  # noqa: E402,F401
-from .solvers import factorize, gn_solve, Posterior  # noqa: E402,F401
+for _m in pkgutil.walk_packages(_pkg.__path__, _pkg.__name__ + "."):
+    sys.modules[__name__ + _m.name[len(_pkg.__name__):]] = importlib.import_module(_m.name)
+sys.modules[__name__] = _pkg

@@ -40,6 +40,39 @@ def test_setup_compile_cache(monkeypatch, env_dir):
         assert updates == []
 
 
+@pytest.mark.parametrize("x64", [None, True, False])
+def test_setup_runtime_sets_precision_then_cache(monkeypatch, x64):
+    """One helper sets every entry point's precision (f64 unless asked) and
+    its compile cache; the example drivers reach it through apply_runtime."""
+    updates = []
+    monkeypatch.setattr(jax.config, "update", lambda k, v: updates.append((k, v)))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    if x64 is None:
+        path = config.setup_runtime()
+        want = config.DEFAULT_X64
+    else:
+        config.apply_runtime(config.SolverConfig(x64=x64))
+        path = str(REPO / ".jax_cache")
+        want = x64
+    assert config.DEFAULT_X64 is True and config.SolverConfig().x64 is True
+    assert updates == [("jax_enable_x64", want),
+                       ("jax_compilation_cache_dir", path)]
+
+
+def test_old_import_name_is_an_alias():
+    """The package's earlier name (the alias package beside it) resolves to
+    the very same module objects, submodules included."""
+    import importlib
+
+    olds = [p.name for p in REPO.iterdir()
+            if p.name.startswith(gpt.__name__ + "_") and (p / "__init__.py").exists()]
+    assert len(olds) == 1
+    assert importlib.import_module(olds[0]) is gpt
+    assert importlib.import_module(olds[0] + ".ops.backend") is backend
+    mod = importlib.import_module(olds[0] + ".solvers.distributed")
+    assert mod.factorize_distributed is gpt.solvers.distributed.factorize_distributed
+
+
 @pytest.mark.parametrize(
     "platform,expected", [("gpu", True), ("cpu", False), ("rocm", None), ("metal", None)]
 )
